@@ -1,6 +1,6 @@
 """Multi-device sharding demo: marker-sharded GRM, ridge, and Gibbs.
 
-Runs on a real TPU mesh or, for development, a virtual CPU mesh:
+Runs on several GPUs or, for development, a virtual CPU mesh:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/multichip_sharding.py

@@ -1,6 +1,6 @@
 """Quickstart: simulate a breeding panel, fit the model zoo, cross-validate.
 
-Run: python examples/quickstart.py          (TPU if available, else CPU)
+Run: python examples/quickstart.py          (GPU if available, else CPU)
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""genomicbreedingmodels_tpu — TPU-native genomic prediction framework.
+"""genomicbreedingmodels_tpu — JAX-native genomic prediction framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 GenomicBreeding/GenomicBreedingModels.jl (reference mounted read-only at

@@ -188,7 +188,7 @@ def cmd_grm(a) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m genomicbreedingmodels_tpu",
-        description="TPU-native genomic prediction: fit / predict / cv / gwas / grm",
+        description="JAX-native genomic prediction: fit / predict / cv / gwas / grm",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 

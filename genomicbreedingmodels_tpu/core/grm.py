@@ -1,8 +1,8 @@
 """Genomic relationship matrices (GRM/kinship).
 
-TPU-native replacement for GenomicBreedingCore's `grmsimple` /
+Device-native replacement for GenomicBreedingCore's `grmsimple` /
 `grmploidyaware` (used by the reference at src/gwas.jl:117-126). The Gram
-product runs on-device as a single large matmul (MXU) with float32
+product runs on-device as a single large matmul with float32
 accumulation; for marker counts that exceed device memory the build streams
 column blocks (see ops.grm_blocked and parallel.sharded for the multi-device
 column-sharded version with psum accumulation).
@@ -44,7 +44,7 @@ def _grm_from_freqs(freqs: np.ndarray, ploidy: int) -> GRMResult:
     if denom <= 1e-12:
         denom = 1.0
     # Exact int8 dosage path when the panel sits on the {0,1/k,...,1} grid
-    # (real genotype calls): 2x MXU rate AND zero quantization error.
+    # (real genotype calls): a quarter of the f32 bytes AND zero quantization error.
     D = encode_dosage(X, ploidy=ploidy)
     if D is not None:
         G = np.asarray(gram_dosage(D, ploidy=ploidy)) / denom

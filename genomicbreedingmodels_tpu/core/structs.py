@@ -1,6 +1,6 @@
 """Core data model: Genomes, Phenomes, Trials, Fit, CV.
 
-TPU-native re-design of the data layer the reference imports from
+Device-native re-design of the data layer the reference imports from
 GenomicBreedingCore.jl (see reference usage at src/prediction.jl:114,129,
 src/gwas.jl:117-126, src/cross_validation.jl:79). Design differences from the
 reference:

@@ -4,12 +4,14 @@
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import TYPE_CHECKING, List, Tuple
 
 import numpy as np
-import pandas as pd
 
 from .structs import CV
+
+if TYPE_CHECKING:  # pandas is an optional extra: imported where it is used
+    import pandas as pd
 
 __all__ = ["tabularise", "summarise"]
 
@@ -24,7 +26,7 @@ def _validation_population(cv: CV) -> str:
     return ";".join(sorted(set(cv.validation_populations.tolist())))
 
 
-def tabularise(cvs: List[CV]) -> Tuple[pd.DataFrame, pd.DataFrame]:
+def tabularise(cvs: List[CV]) -> Tuple["pd.DataFrame", "pd.DataFrame"]:
     """Returns (df_across_entries, df_per_entry).
 
     df_across_entries: one row per CV job with across-entry metrics.
@@ -55,10 +57,12 @@ def tabularise(cvs: List[CV]) -> Tuple[pd.DataFrame, pd.DataFrame]:
             per = dict(base)
             per.update(entry=e, population=pop, validation_population=pop, y_true=yt, y_pred=yp)
             per_rows.append(per)
+    import pandas as pd
+
     return pd.DataFrame(across_rows), pd.DataFrame(per_rows)
 
 
-def summarise(cvs: List[CV]) -> Tuple[pd.DataFrame, pd.DataFrame]:
+def summarise(cvs: List[CV]) -> Tuple["pd.DataFrame", "pd.DataFrame"]:
     """Returns (summary_across, summary_per_entry).
 
     summary_across: mean/std of each metric grouped by

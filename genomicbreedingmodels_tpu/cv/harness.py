@@ -9,7 +9,7 @@ linear scans inside every job and parallelizes with Julia threads + a lock.
 Here jobs carry integer indices resolved once via hash maps, and the fold/
 model axis is dispatched through a small host-side executor that keeps the
 accelerator queue full (models themselves are single fused XLA programs; on a
-multi-chip mesh, jobs round-robin across devices — see parallel.sharded).
+multi-device mesh, jobs round-robin across devices — see parallel.sharded).
 Fold-assignment semantics (random labels, NOT an exact partition), skip rules
 and note strings mirror the reference (src/cross_validation.jl:358-371).
 """
@@ -157,9 +157,9 @@ def cvdispatch(
 
     Multi-device placement: with `n_workers > 1` and more than one device,
     job i is pinned to `devices[i % D]` via `jax.default_device` (thread-local
-    in JAX), so independent jobs fan out round-robin across the mesh's chips
-    — the job-level analogue of the reference's Julia thread pool, with chips
-    instead of threads. Pass `devices` to restrict the set. For the fully
+    in JAX), so independent jobs fan out round-robin across the mesh's
+    devices — the job-level analogue of the reference's Julia thread pool,
+    with devices instead of threads. Pass `devices` to restrict the set. For the fully
     batched fold×model alternative (one XLA program, folds sharded over the
     mesh) see `cvbulk_batched(mesh=...)`.
     """

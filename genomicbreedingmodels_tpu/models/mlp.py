@@ -1,11 +1,11 @@
-"""Multilayer-perceptron genomic prediction (TPU-native realization of the
+"""Multilayer-perceptron genomic prediction (device-native realization of the
 reference's intended-but-disabled DL extension, src/dl.jl:82-211).
 
 The reference's Lux.jl MLP (fully commented out) specified: configurable
 hidden layers + dropout, Adam optimizer, MSE loss, GPU device selection.
 Here that design is a pure-functional JAX program: parameters are a pytree of
 (W, b) pairs, the whole training run is ONE `lax.scan` over epochs compiled
-by XLA (full-batch gradients ride the MXU as (n x p) @ (p x h) GEMMs), and
+by XLA (full-batch gradients are (n x p) @ (p x h) GEMMs), and
 optimizer state is optax Adam. Dropout uses per-epoch fold_in keys so the
 compiled loop stays deterministic for a given seed.
 

@@ -4,7 +4,7 @@ GBLUP on trial records.
 BASELINE config 5 names "multi-trait/multi-env GBLUP" as a headline
 capability; the reference has no multi-trait model at all (its CV loops refit
 each trait independently, src/cross_validation.jl:345-358), so this is a new
-capability designed TPU-first:
+capability designed device-first:
 
 Model: Y (n × t) with vec(U) ~ N(0, G_g ⊗ K) and vec(E) ~ N(0, R ⊗ I) —
 G_g the t×t genetic covariance across traits, K the n×n GRM, R the t×t

@@ -1,7 +1,7 @@
 """Build + load the native gbmio shared library (ctypes).
 
 The library is compiled on first use with the system g++ (C++17, -O3,
--pthread) and cached next to the sources; any failure degrades gracefully to
+-pthread) and cached next to the sources (not tracked by git); any failure degrades gracefully to
 the numpy fallbacks in io.py. No pybind11: the ABI is plain C, bound with
 ctypes.
 """
@@ -9,6 +9,7 @@ ctypes.
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -22,15 +23,23 @@ _tried = False
 
 
 def _build() -> bool:
+    # Build under a per-process name and rename into place, so processes
+    # that build concurrently (test workers) never load a half-written file.
+    tmp = _LIB.with_name(f".{_LIB.stem}.{os.getpid()}.so")
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-        str(_SRC), "-o", str(_LIB),
+        str(_SRC), "-o", str(tmp),
     ]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        return res.returncode == 0 and _LIB.exists()
+        if res.returncode != 0 or not tmp.exists():
+            return False
+        os.replace(tmp, _LIB)
+        return True
     except (OSError, subprocess.TimeoutExpired):
         return False
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def load_native() -> Optional[ctypes.CDLL]:

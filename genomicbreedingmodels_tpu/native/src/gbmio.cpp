@@ -185,7 +185,7 @@ int gbmio_bed_decode(const uint8_t* buf, long n_samples, long n_snps,
 }
 
 // Decode a PLINK .bed payload straight to int8 dosages {0, 1, 2}
-// (-1 = missing) — the exact-MXU int8 Gram path wants dosages, not
+// (-1 = missing) — the exact int8 Gram path wants dosages, not
 // frequencies, and the int8 output is 8x smaller than the f64 one.
 // `out_snp_major` != 0: out[n_snps * n_samples] stays SNP-major (the .bed
 // native order — pure LUT decode, 4 dosages per payload byte, no transpose;

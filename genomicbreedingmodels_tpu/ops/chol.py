@@ -1,15 +1,14 @@
 """Blocked Cholesky + blocked triangular solves for the GBLUP hot path.
 
-XLA's native `jnp.linalg.cholesky` + `cho_solve` at n=8192 f32 costs ~43 ms
-on TPU v5e (~16 ms factor + ~25 ms for the two sequential triangular solves
-— trsv exposes no parallelism). This module restructures both so the flops
-live in big GEMMs:
+XLA's native `jnp.linalg.cholesky` + `cho_solve` run the two triangular
+solves as sequential trsv recurrences, which expose little parallelism. This
+module restructures both so the flops live in big GEMMs:
 
 - `blocked_cholesky`: left-looking panel factorization. Panel j's update is
   two GEMMs against all previous panels ((n-lo) x lo x b), the diagonal block
   factors with the native kernel at b x b (cheap), and the sub-diagonal panel
   is formed as `Aij @ inv(Ljj)ᵀ` (one more GEMM; the b x b triangular inverse
-  is one small trsm). Measured 8-10 ms at n=8192, b=512 vs ~16 ms native.
+  is one small trsm).
 - `blocked_cho_solve`: forward/backward substitution one panel at a time —
   nb small (b x b) GEMVs plus rank-b updates instead of 2n scalar-recurrence
   steps.
@@ -19,10 +18,8 @@ live in big GEMMs:
   mirror pass entirely (see ops/grm.py:gram_dosage_lower).
 
 Replaces the reference's LAPACK solve under `X \\ y` / mixed-model solves
-(reference src/linear.jl:85) on the TPU path. Measured fused
-GRM+center+factor+solve at 8192 x 262144 int8: 83.1 ms (25.8 GSNP/s) vs
-98.5 ms (21.8) with the mirrored Gram + native chol/cho_solve (round-1
-headline).
+(reference src/linear.jl:85) on the device path. Whether it beats cuSOLVER
+through `jnp.linalg.cholesky` on the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -120,7 +117,7 @@ def blocked_cholesky(A: jnp.ndarray, nb: int = 16) -> jnp.ndarray:
     GEMMs; only A's lower triangle is read.
 
     Conditioning caveat: the substitution phases apply explicit inverses of
-    the diagonal blocks by GEMM (MXU-friendly) instead of triangular solves,
+    the diagonal blocks by GEMM instead of triangular solves,
     which loses accuracy on ill-conditioned A — roughly a factor of
     κ(block)² vs κ(block) in the local error term. Intended for
     well-conditioned mixed-model systems like K + λI with λ well above the

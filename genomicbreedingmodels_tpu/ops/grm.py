@@ -2,37 +2,33 @@
 
 The (n x p) @ (p x n) Gram product is the single biggest dense-compute item in
 the GWAS/GBLUP stack (reference hot spot: GRM build at src/gwas.jl:117-126,
-O(n²p)). Three single-chip schedules live here, all pure XLA, all exploiting
+O(n²p)). Three single-device schedules live here, all pure XLA, all exploiting
 symmetry so only ~half the FLOPs are executed:
 
 - `gram_panel` (default): right-looking column-panel syrk — panel j is one
-  tall ((n - j·b) x b x p) GEMM. Large-M GEMMs keep the MXU at full rate;
-  measured 16.5 GSNP/s at 8192 x 262144 bf16 on TPU v5e vs 10.1 for the
-  single fused GEMM and 13.6/15.4 for square-tile/recursive schedules.
+  tall ((n - j·b) x b x p) GEMM, so every GEMM has a large M dimension.
 - `gram_recursive`: 2x2 recursion, off-diagonal block of each level is one
-  big GEMM (15.4 GSNP/s).
-- `gram_triangular`: square row-block tiles (13.6 GSNP/s), kept for
-  comparison and small shapes.
+  big GEMM.
+- `gram_triangular`: square row-block tiles, kept for comparison and small
+  shapes.
 
 Centering is NEVER done by materializing X - 1μᵀ (a bf16 subtract quantizes
 the panel; the copy costs two panel-size HBM passes). Because column-centering
 X is the projection P = I - 11ᵀ/n applied on the left, the centered Gram is
 K = P (X Xᵀ) P — plain double-centering of the RAW Gram (subtract row/col
 means, add back the grand mean): an O(n²) epilogue in f32, no extra panel
-traffic, and ~100x more accurate than the bf16 subtract (measured 2.0e-6 vs
-1.9e-4 max rel err vs f64 at 512 x 8192).
+traffic, and far more accurate than a bf16 subtract.
 
-A Pallas kernel variant and the multi-device column-sharded (psum over ICI)
-build live in ops.pallas_kernels / parallel.sharded.
+The multi-device column-sharded build (psum across devices) lives in
+parallel.sharded.
 
 **Dosage panels (the fast path).** Real SNP panels at ploidy k hold allele
 frequencies on the exact grid {0, 1/k, ..., 1} (diploid: {0, 0.5, 1}). Encoded
-as int8 dosages d = k·x, the raw Gram D Dᵀ accumulates in int32 on the MXU at
-2x the bf16 rate — and is EXACT (int32 overflows only past p ≈ 2³¹/k², i.e.
->5·10⁸ diploid markers). `gram_dosage` runs the same panel-syrk schedule on
-int8 operands: measured 27.3 GSNP/s at 8192 x 262144 on TPU v5e vs 16.5 for
-bf16, with zero quantization error (cf. PLINK's 2-bit genotype codec — here
-the codec IS the matmul operand). `encode_dosage` validates the grid;
+as int8 dosages d = k·x, the raw Gram D Dᵀ accumulates in int32 — EXACTLY
+(int32 overflows only past p ≈ 2³¹/k², i.e. >5·10⁸ diploid markers), with a
+quarter of the f32 operand bytes. `gram_dosage` runs the same panel-syrk
+schedule on int8 operands with zero quantization error (cf. PLINK's 2-bit
+genotype codec — here the codec IS the matmul operand). `encode_dosage` validates the grid;
 `gram_auto` picks dosage/bf16 automatically.
 """
 
@@ -132,8 +128,7 @@ def gram_panel(X, center: bool = True, nb: int | None = None) -> jnp.ndarray:
     Panel j is one ((n - j·b) x b x p) GEMM covering the diagonal block and
     everything below it; the strict upper triangle is filled by transpose.
     Executed-FLOP fraction (nb+1)/(2nb) of the full GEMM, and every GEMM has
-    a large M dimension so the MXU stays near peak. Fastest measured
-    single-chip schedule: 16.5 GSNP/s at 8192 x 262144 bf16 (nb=16).
+    a large M dimension.
     """
     X = jnp.asarray(X)
     n = X.shape[0]
@@ -194,14 +189,13 @@ def _gram_dosage(D: jnp.ndarray, ploidy: int, center: bool, nb: int) -> jnp.ndar
 
 
 def gram_dosage(D, ploidy: int = 2, center: bool = True, nb: int | None = None) -> jnp.ndarray:
-    """Centered Gram of a dosage-coded panel: EXACT int8 syrk on the MXU.
+    """Centered Gram of a dosage-coded panel: EXACT int8 syrk.
 
     `D` is int8 dosages in {0, ..., ploidy} (use `encode_dosage` to produce it
     from an allele-frequency panel). The raw Gram accumulates in int32 —
     bit-exact, no rounding — then scales by 1/ploidy² and double-centers in
-    f32. Runs the same column-panel schedule as `gram_panel`; int8 operands
-    double the MXU rate: 27.3 GSNP/s at 8192 x 262144 on TPU v5e (vs 16.5
-    bf16). Exactness bound: p·ploidy² < 2³¹.
+    f32. Runs the same column-panel schedule as `gram_panel`. Exactness
+    bound: p·ploidy² < 2³¹.
     """
     D = jnp.asarray(D)
     if D.dtype != jnp.int8:
@@ -225,8 +219,8 @@ def gram_dosage_snp_major(
     PLINK .bed payloads are SNP-major; decoding them without a host
     transpose (native/src/gbmio.cpp:gbmio_bed_decode_i8 with
     out_snp_major=1) is ~2x faster on a 2-core host, and the device
-    transposes the int8 shard inside this jitted program in ~1 ms. Same
-    exact int32 Gram as `gram_dosage`.
+    transposes the int8 shard inside this jitted program. Same exact int32
+    Gram as `gram_dosage`.
     """
     F = jnp.asarray(F)
     if F.dtype != jnp.int8:
@@ -279,9 +273,7 @@ def gram_dosage_lower(D, ploidy: int = 2, nb: int | None = None) -> jnp.ndarray:
 
     Same exact int8 syrk as `gram_dosage` but the symmetric mirror is never
     built — for consumers that read a single triangle (blocked Cholesky /
-    eigh). This is the fastest GRM+GBLUP composition measured: 83.1 ms
-    (25.8 GSNP/s) for the full fused step at 8192 x 262144 on TPU v5e vs
-    98.5 ms with the mirrored Gram + native chol/cho_solve.
+    eigh); it skips the two n x n passes of the mirror.
     """
     D = jnp.asarray(D)
     if D.dtype != jnp.int8:
@@ -308,7 +300,7 @@ def gram_auto(X, ploidy: int = 2, center: bool = True) -> jnp.ndarray:
 
 def _assemble_recursive(z, d):
     """Symmetric Z Zᵀ by 2x2 recursion: the off-diagonal block of each level
-    is one big GEMM (runs at full MXU rate), the diagonal blocks recurse.
+    is one big GEMM, the diagonal blocks recurse.
     Executed-FLOP fraction after d levels: 1/2 + 2^-d/2."""
     if d == 0:
         return jnp.dot(z, z.T, preferred_element_type=jnp.float32)
@@ -329,8 +321,7 @@ def _gram_recursive(X: jnp.ndarray, center: bool, depth: int) -> jnp.ndarray:
 def gram_recursive(X, center: bool = True, depth: int | None = None) -> jnp.ndarray:
     """Centered Gram via recursive symmetric blocking (pure XLA).
 
-    Measured 15.4 GSNP/s at 8192 x 262144 bf16 on TPU v5e. Default depth
-    keeps leaf diagonal blocks >= 512 rows.
+    Default depth keeps leaf diagonal blocks >= 512 rows.
     """
     X = jnp.asarray(X)
     n = X.shape[0]
@@ -370,9 +361,8 @@ def _gram_triangular(X: jnp.ndarray, center: bool, nb: int) -> jnp.ndarray:
 def gram_triangular(X, center: bool = True, nb: int | None = None) -> jnp.ndarray:
     """Centered Gram via a triangular schedule of square row-block GEMMs.
 
-    Kept for comparison; `gram_panel` is faster (13.6 vs 16.5 GSNP/s at
-    8192 x 262144 bf16). nb is capped so blocks never shrink below ~1024
-    rows.
+    Kept for comparison and small shapes. nb is capped so blocks never
+    shrink below ~1024 rows.
     """
     X = jnp.asarray(X)
     n = X.shape[0]
@@ -383,18 +373,11 @@ def gram_triangular(X, center: bool = True, nb: int | None = None) -> jnp.ndarra
     return _gram_triangular(X, center, int(nb))
 
 
-def gram_centered_device(X, use_pallas: bool = False) -> jnp.ndarray:
+def gram_centered_device(X) -> jnp.ndarray:
     """Device-resident centered Gram: returns a jnp (n, n) f32 array.
 
-    Default is the column-panel XLA schedule (`gram_panel`) — the fastest
-    measured variant on the real chip. The Pallas kernel remains opt-in
-    (`use_pallas=True`). Input may be any float dtype; bf16 inputs keep the
-    MXU at full rate, and centering accuracy does not depend on the input
-    dtype (see `center_gram`).
+    Runs the column-panel XLA schedule (`gram_panel`). Input may be any float
+    dtype; centering accuracy does not depend on the input dtype (see
+    `center_gram`).
     """
-    X = jnp.asarray(X)
-    if use_pallas:
-        from .pallas_kernels import grm_pallas
-
-        return grm_pallas(X, interpret=False)
-    return gram_panel(X)
+    return gram_panel(jnp.asarray(X))

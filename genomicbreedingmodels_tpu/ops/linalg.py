@@ -11,7 +11,7 @@ reference's native backends).
 - `lasso_cv_path`: replaces glmnet coordinate descent with alpha=1 (reference
   src/linear.jl:333-360). Pathwise FISTA where ALL λ values and ALL folds are
   advanced simultaneously as one (fold, λ) batch of GEMMs — the iteration
-  count is static so XLA compiles a single fused loop feeding the MXU.
+  count is static so XLA compiles a single fused loop of GEMMs.
 
 λ selection mirrors the reference's behavior: candidates sorted by CV mean
 loss, first one whose coefficient variance exceeds 1e-10 wins (reference
@@ -141,8 +141,8 @@ def make_fold_masks(n: int, n_folds: int, seed: int = 42) -> np.ndarray:
 def _gram_and_stats(X: Array):
     """Raw Gram + column sums: the one O(n²p) pass shared by all CV folds.
 
-    bf16 operands on the panel syrk schedule (ops/grm.py) — the same MXU
-    policy as the GRM hot path. Masked/centered per-fold Grams derive from
+    bf16 operands on the panel syrk schedule (ops/grm.py) — the same
+    precision policy as the GRM hot path. Masked/centered per-fold Grams derive from
     the raw Gram in O(n²): with m = fold-training column means and
     M = diag(w),
       (M (X - 1 mᵀ)) (M (X - 1 mᵀ))ᵀ = M (G - X m 1ᵀ - 1 mᵀ Xᵀ + (m·m) 11ᵀ) M.
@@ -273,7 +273,7 @@ def _lasso_fista_batch(Z: Array, yc: Array, w: Array, lambdas: Array, step: Arra
 
     Z: (n, p) centered design; yc: (n,) centered response; w: (n,) row mask
     (all-ones for the full-data path). Returns B: (p, L). The two GEMMs per
-    iteration run on bf16 operands with f32 accumulation (4x MXU rate; the
+    iteration run on bf16 operands with f32 accumulation (tensor-core rate; the
     iterate/soft-threshold state stays f32, so this is standard
     mixed-precision proximal gradient).
     """

@@ -1,13 +1,13 @@
-"""Multi-host initialization + hybrid ICI/DCN meshes (SURVEY §5/§7: the
+"""Multi-host initialization + hybrid intra-/inter-host meshes (SURVEY §5/§7: the
 reference has no distributed runtime at all — its only inter-process
 communication is temp files + Rscript, reference src/bayes.jl:59-99).
 
-Scale-out recipe (BASELINE north star, 100k x 1M panels over a pod slice):
+Scale-out recipe (BASELINE north star, 100k x 1M panels over several hosts):
 1. `distributed_init()` on every host (jax.distributed handshake).
-2. `make_multihost_mesh(('dp', 'mp'))` — 'mp' (markers) maps to the
-   intra-host ICI-connected devices, 'dp' (folds/chains/traits) spans hosts
-   over DCN, so the heavy Gram/effect psums ride ICI while only low-rate
-   job-level reductions cross DCN.
+2. `make_multihost_mesh(('dp', 'mp'))` — 'mp' (markers) maps to the devices
+   of one host (NVLink between GPUs), 'dp' (folds/chains/traits) spans hosts
+   over the network, so the heavy Gram/effect psums stay inside a host while
+   only low-rate job-level reductions cross hosts.
 3. Shard the panel with `marker_sharding(mesh)` host-by-host: each process
    feeds only its local shard via `jax.make_array_from_process_local_data`.
 """
@@ -54,8 +54,8 @@ def make_multihost_mesh(
     axis_names: Tuple[str, str] = ("dp", "mp"),
     dp_per_host: int = 1,
 ):
-    """Hybrid mesh: 'mp' = devices within a host (ICI), 'dp' = across hosts
-    (DCN) x optional intra-host split.
+    """Hybrid mesh: 'mp' = devices within a host, 'dp' = across hosts x
+    optional intra-host split.
 
     Single-process fallback: a (1, n_devices) mesh, so the same model code
     runs everywhere.
@@ -72,7 +72,7 @@ def make_multihost_mesh(
         return Mesh(devs.reshape(1, local), axis_names)
     from jax.experimental import mesh_utils
 
-    # dp = hosts * dp_per_host over DCN; mp = remaining local devices on ICI.
+    # dp = hosts * dp_per_host across hosts; mp = remaining local devices.
     if local % dp_per_host != 0:
         raise ValueError(f"dp_per_host={dp_per_host} does not divide local device count {local}")
     mp = local // dp_per_host

@@ -2,11 +2,13 @@
 
 The framework's long axis is the marker dimension p (up to 10⁶ columns); the
 canonical mesh is ('dp', 'mp') where 'mp' column-shards the n x p SNP matrix
-(GRM / XᵀX partials all-reduce over ICI) and 'dp' batches independent work
+(GRM / XᵀX partials all-reduce across devices; on one host the cards are
+joined all to all by NVLink, so the mesh follows the algorithm alone) and
+'dp' batches independent work
 (CV folds, MCMC chains, traits). This replaces the reference's
 Threads.@threads + ReentrantLock scheduling (reference
 src/cross_validation.jl:158-185) — there is no NCCL/MPI analog in the
-reference to translate; the collectives are XLA's.
+reference to translate; the collectives are XLA's (NCCL on GPUs).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ panel never exists anywhere.
 Pipeline stages overlap naturally: disk read + 2-bit decode happen on the
 prefetch thread, host→device transfer and the panel-syrk GEMMs are
 dispatched asynchronously by JAX, so sustained throughput approaches
-min(disk, decode, MXU) rather than their sum (cf. the streaming
+min(disk, decode, device) rather than their sum (cf. the streaming
 HDD→accelerator design of arxiv 1302.4332).
 """
 
@@ -153,9 +153,9 @@ class BedShardStreamer:
 
         .bed genotypes ARE dosages, so no float materialization is needed:
         the int8 shard is 4x smaller than the f32 one (4x less host→device
-        transfer) and feeds the exact int8 MXU Gram (ops/grm.py:gram_dosage).
+        transfer) and feeds the exact int8 Gram (ops/grm.py:gram_dosage).
         With `snp_major` the shard comes back (cols, n) in the .bed's native
-        order — no host transpose at all (the device does it in ~1 ms inside
+        order — no host transpose at all (the device does it inside
         gram_dosage_snp_major; 2 host cores would take ~1 s). Returns None
         when the shard contains missing calls — the caller falls back to the
         imputed float path for that shard.
@@ -220,7 +220,7 @@ class BedShardStreamer:
 
     def iter_dosage(self, snp_major: bool = False) -> Iterator[Tuple[int, int, np.ndarray]]:
         """Like iter(), but shards without missing calls come back as int8
-        dosages (exact MXU path); shards with missing fall back to imputed
+        dosages (exact int8 path); shards with missing fall back to imputed
         float32 (always sample-major). `snp_major` keeps the int8 shards in
         the .bed's native (cols, n) order — zero host transpose work; pair
         with `ops.grm.gram_dosage_snp_major` (layout distinguishable by
@@ -260,20 +260,17 @@ def grm_from_bed(
 
     Shards with complete calls ride the exact int8 dosage path
     (ops/grm.py:gram_dosage — .bed genotypes ARE dosages): 4x smaller
-    host→device transfer and 2x MXU rate, zero quantization error. Shards
-    containing missing calls are mean-imputed and take the float path at
-    `dtype` ("bfloat16" on TPU for full MXU rate; float32 elsewhere).
+    host→device transfer, zero quantization error. Shards containing missing
+    calls are mean-imputed and take the float path at `dtype` (float32 by
+    default).
     Pass dtype="float32"/"bfloat16" to force the float path for every shard.
     """
-    import jax
     import jax.numpy as jnp
 
     from .ops.grm import center_gram, gram_dosage_snp_major, gram_panel
 
     force_float = dtype is not None
-    if dtype is None:
-        dtype = "bfloat16" if jax.devices()[0].platform == "tpu" else "float32"
-    dt = jnp.dtype(dtype)
+    dt = jnp.dtype(dtype or "float32")
     streamer = BedShardStreamer(prefix, block_cols=block_cols, prefetch=prefetch)
     K = None
     shards = streamer if force_float else streamer.iter_dosage(snp_major=True)

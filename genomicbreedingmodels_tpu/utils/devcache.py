@@ -1,8 +1,7 @@
 """Single-slot device-resident panel cache.
 
-Through a slow host↔device link the panel upload dominates warm repeated
-calls (measured: 7.1 s of a 15.2 s warm cvbulk_batched at 2048×32768 was
-the panel h2d + Gram — the solves themselves were 6 s). Call sites that
+A panel upload (plus the Gram derived from it) can dominate warm repeated
+calls on the same panel. Call sites that
 derive device state from the SAME host panel across calls (cvbulk_batched
 warm runs, cvperpopulation's per-population loops, gwasols/gwaslmm/gwasreml
 on one panel) cache the derived device arrays keyed on a cheap host

@@ -1,11 +1,13 @@
 """Regenerate README.md's measured-benchmark table from a bench artifact.
 
-Reads JSON metric lines (bench.py output, or a driver BENCH_r*.json whose
+Reads JSON metric lines (bench.py output, or a JSON artifact whose
 "output"/"stdout" field holds them) and rewrites the table between the
 `<!-- bench:begin -->` / `<!-- bench:end -->` markers, so README numbers are
-always artifact-derived, never hand-maintained.
+always artifact-derived, never hand-maintained. Every row names the card and
+power limit the run was taken on (`--card`, as nvidia-smi prints
+`name,power.limit`).
 
-Usage: python scripts/update_readme_bench.py <bench-output-or-artifact> ...
+Usage: python scripts/update_readme_bench.py --card "NAME, LIMIT W" <bench-output> ...
 Later files win on duplicate metrics (pass the freshest artifact last).
 """
 
@@ -63,11 +65,20 @@ def fmt(m):
 
 
 def main():
-    metrics = parse_metrics(sys.argv[1:])
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--card", required=True,
+                    help="nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
+    ap.add_argument("files", nargs="+")
+    args = ap.parse_args()
+    metrics = parse_metrics(args.files)
     if not metrics:
         sys.exit("no metric lines found in the given files")
-    rows = "\n".join(f"| {name} | {fmt(m)} |" for name, m in sorted(metrics.items()))
-    table = f"| benchmark (bench.py metric) | result |\n|---|---|\n{rows}"
+    rows = "\n".join(
+        f"| {name} | {fmt(m)} | {args.card} |" for name, m in sorted(metrics.items())
+    )
+    table = f"| benchmark (bench.py metric) | result | card, power limit |\n|---|---|---|\n{rows}"
     text = README.read_text()
     # Match the markers regardless of what sits between them (including the
     # adjacent-lines empty case); re.subn so a zero-match run is a hard error

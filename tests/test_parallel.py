@@ -78,7 +78,9 @@ def test_multitrait_gblup_over_dp_mp_mesh():
 
 def test_graft_entry_single_and_multichip():
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
