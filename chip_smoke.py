@@ -36,9 +36,11 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 
 # "dot precision" as printed per phase: f32 products at XLA's default
-# precision, which runs them in TF32 on tensor-core GPUs; no package dot site
-# sets another (the f64 checks below are what says that is enough).
+# precision run in TF32 on tensor-core GPUs. The one site where TF32 missed
+# a check sets HIGHEST (full f32): the CV fold solves, whose GCV picked λ by
+# rounding noise.
 DEFAULT_PREC = "f32-default(TF32)"
+HIGHEST_PREC = "f32-HIGHEST"
 EXACT_PREC = "int8xint8->int32(exact)"
 
 
@@ -170,6 +172,26 @@ def ridge_fold_f64(K, y, w, reg):
     return mean_y + K[:, tr] @ gamma
 
 
+def ridge_gcv_f64(K, y, w, lambdas):
+    """The training-only GCV curve of one ridge fold in f64, the criterion
+    cv/batched.py:_fold_solve minimizes: MSE_train / max((1 − edf/n_w)², 1e-6)
+    with the training residual λ·n_w·γ."""
+    tr = np.flatnonzero(w > 0)
+    n_w = len(tr)
+    K = np.asarray(K, np.float64)
+    y = np.asarray(y, np.float64)
+    s, U = np.linalg.eigh(K[np.ix_(tr, tr)])
+    s = np.maximum(s, 0.0)
+    Uty = U.T @ (y[tr] - y[tr].mean())
+    out = []
+    for lam in np.asarray(lambdas, np.float64):
+        d = s + lam * n_w
+        res = lam * n_w * (U @ (Uty / d))
+        edf = np.sum(s / d)
+        out.append((res @ res / n_w) / max((1.0 - edf / n_w) ** 2, 1e-6))
+    return np.asarray(out)
+
+
 def lasso_fold_f64(X, y, w, lam, n_iter=300):
     """f64 FISTA on (1/2n_w)‖w(y_c − Z b)‖² + λ‖b‖₁ with the training-row
     centering of cv/batched.py:_lasso_fold; returns the full-panel
@@ -254,13 +276,17 @@ def _dot_kernels(hlo_text: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def phase_flagship(rep: Report, n=8192, p=262_144, lam=0.1, slab=256):
+def phase_flagship(rep: Report, n=8192, p=262_144, lam=None, slab=256):
     import jax
     import jax.numpy as jnp
 
     from genomicbreedingmodels_tpu.ops.chol import gblup_solve_lower
     from genomicbreedingmodels_tpu.ops.grm import _gram_panel_int8_lower, gram_dosage_lower
 
+    # λ = E[diag K] (uniform {0,1,2} dosages: variance 2/3 per marker, / ploidy²),
+    # the h² = 0.5 ratio: the shrinkage λα is half of y_c, so the GEBV moves
+    # with the solve.
+    lam = p / 6.0 if lam is None else lam
     kx, ky = jax.random.split(jax.random.PRNGKey(0))
     D = _sync(jax.random.randint(kx, (n, p), 0, 3, dtype=jnp.int8))
     y = jax.random.normal(ky, (n,), dtype=jnp.float32)
@@ -297,15 +323,14 @@ def phase_flagship(rep: Report, n=8192, p=262_144, lam=0.1, slab=256):
     t_ref = time.perf_counter() - t0
     gebv = np.asarray(gebv, np.float64)
     yc = np.asarray(y, np.float64) - float(np.mean(np.asarray(y, np.float64)))
-    rep.line("1.grm+gblup", f"{n}x{p} int8", dt, rel_err(gebv, g64), 1e-4,
-             f"{EXACT_PREC}+{DEFAULT_PREC}",
+    # Tolerance 1e-4 of the largest GEBV: far below any difference a ranking
+    # of candidates can see, and well above the f32 floor of this solve
+    # (cond(K + λI) ≈ 2.4; ~4e-6 at full f32, ~3e-5 in TF32 on an H100).
+    rep.line("1.grm+gblup", f"{n}x{p} int8 lambda={lam:.6g}", dt, rel_err(gebv, g64), 1e-4,
+             f"{EXACT_PREC}+solve:{DEFAULT_PREC}",
              f"compile_s={t_compile:.1f} host_f64_solve_s={t_ref:.1f} "
-             f"SNPs/s={n * p / dt:.4e} err=max|gebv-f64|/max|f64|")
-    # The solve's own contribution, y_c - (gebv - mean) = λα, is tiny next to
-    # y_c; check it separately so the solve cannot hide behind y_c.
-    rep.line("1.gblup-shrinkage", f"{n}x{n}", 0.0,
-             rel_err(yc - (gebv - gebv.mean()), yc - (g64 - g64.mean())), 5e-2,
-             DEFAULT_PREC, "err on λα = y_c - centered GEBV")
+             f"SNPs/s={n * p / dt:.4e} err=max|gebv-f64|/max|f64| "
+             f"shrinkage |λα|/|y_c|={np.linalg.norm(yc - (g64 - g64.mean())) / np.linalg.norm(yc):.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +469,45 @@ def phase_chains(rep: Report, n=2048, p=32_768, sweeps=300, burn=100,
                  t0_ + t1_, abs(s0 - s1) / s1, 0.25, DEFAULT_PREC, "err=|Δσ²ₑ|/σ²ₑ")
 
 
+def fold_masks(n, folds):
+    masks = np.ones((folds, n), np.float32)
+    for f in range(folds):
+        masks[f, f::folds] = 0.0
+    return masks
+
+
+def phase_cv_chains(rep: Report, n=2048, p=32_768, folds=4, sweeps=100, burn=30):
+    """Fold-batched BayesC chains (gibbs_cv_folds): "auto" on the GPU runs the
+    block kernel with one program per fold; the XLA grouped scan is its
+    reference (same draws)."""
+    import dataclasses
+
+    from genomicbreedingmodels_tpu.models.bayesian import _block_kernel_on, gibbs_cv_folds
+    from genomicbreedingmodels_tpu.utils.config import get_config, set_config
+
+    X, y = signal_panel(n, p)
+    masks = fold_masks(n, folds)
+    cfg0 = get_config()
+    rep.info("2.cv-chains", "auto picks the kernel: "
+             f"{_block_kernel_on('auto', True, cfg0.mcmc_group_size, p, batch=folds)}")
+    out = {}
+    kw = dict(model="BayesC", n_iter=sweeps, n_burnin=burn, seed=2)
+    try:
+        for mode in ("auto", "grouped"):
+            set_config(dataclasses.replace(cfg0, mcmc_indicator_update=mode))
+            gibbs_cv_folds(X, y, masks, **kw)  # compile
+            t0 = time.perf_counter()
+            mus, betas = gibbs_cv_folds(X, y, masks, **kw)
+            out[mode] = (mus[:, None] + betas @ X.T.astype(np.float64), time.perf_counter() - t0)
+    finally:
+        set_config(cfg0)
+    err = max(cor_err(a, b) for a, b in zip(out["auto"][0], out["grouped"][0]))
+    rep.line("2.cv-chains-kernel-vs-grouped-gebv", f"{folds} folds x {n}x{p} {sweeps} sweeps",
+             out["auto"][1], err, 0.01, DEFAULT_PREC,
+             f"kernel_s={out['auto'][1]:.3f} xla_scan_s={out['grouped'][1]:.3f} "
+             "err=max over folds of 1-cor(GEBV)")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: GWAS and CV through the public API
 # ---------------------------------------------------------------------------
@@ -534,13 +598,28 @@ def phase_cv(rep: Report, n=2048, p=32_768):
     t0 = time.perf_counter()
     cvs, _ = cvbulk_batched(genomes, phenomes, **kw)
     dt = time.perf_counter() - t0
-    # Fold 1's training mask, rebuilt with the engine's own fold RNG.
+    # The training masks, rebuilt with the engine's own fold RNG.
     labels = np.random.default_rng(42).integers(1, 6, size=n)
     w = (labels != 1).astype(np.float64)
     val = np.flatnonzero(labels == 1)
     X64 = freq.astype(np.float64)
     Z = X64 - X64.mean(axis=0)
     K = Z @ Z.T
+    # Ridge's λ, every fold: the engine's GCV choice against the f64 GCV's.
+    grid = np.logspace(-4, 1, 12)
+    misses, gaps = [], []
+    for j in range(1, 6):
+        cv = next(c for c in cvs if c.fit.model == "ridge" and c.fold == f"fold_{j}")
+        gcv = ridge_gcv_f64(K, yy, (labels != j).astype(np.float64), grid)
+        lam = float(cv.fit.extras["lambda"])
+        pick = int(np.argmin(np.abs(grid - lam)))
+        gaps.append(gcv[pick] / gcv.min() - 1.0)
+        if pick != int(np.argmin(gcv)):
+            misses.append(f"fold_{j}: {lam:.4g} vs {grid[np.argmin(gcv)]:.4g}")
+    rep.line("3.cv-ridge-lambda", f"{n}x{p} 1x5 folds", dt, float(len(misses)), 0.0,
+             f"gram:{DEFAULT_PREC}+fold solve:{HIGHEST_PREC}",
+             f"err=folds whose GCV λ differs from the f64 GCV's {misses} "
+             f"f64 GCV excess of the engine's picks={max(gaps):.3e}")
     for model in ("ridge", "gblup", "lasso"):
         cv = next(c for c in cvs if c.fit.model == model and c.fold == "fold_1")
         lam = float(cv.fit.extras["lambda"])
@@ -553,8 +632,9 @@ def phase_cv(rep: Report, n=2048, p=32_768):
         cor_dev = float(cv.metrics["cor"])
         cor_ref = float(np.corrcoef(yy[val], pred[val])[0, 1])
         tol = 2e-2 if model == "lasso" else 1e-3
+        prec = DEFAULT_PREC if model == "lasso" else f"gram:{DEFAULT_PREC}+fold solve:{HIGHEST_PREC}"
         rep.line(f"3.cv-{model}", f"{n}x{p} 1x5 folds", dt, abs(cor_dev - cor_ref), tol,
-                 DEFAULT_PREC, f"err=|Δ validation cor| fold_1 vs f64 refit at the "
+                 prec, f"err=|Δ validation cor| fold_1 vs f64 refit at the "
                  f"engine's λ={lam:.4g} (cor={cor_dev:.4f})")
 
 
@@ -581,115 +661,185 @@ def phase_parity(rep: Report):
 
 
 MULTI_SIZES = dict(grm=(8192, 262_144), cg=(8192, 65_536), cv=(1024, 16_384),
-                   gibbs=(2048, 32_768, 300, 100), pairs=(512, 4096, 256))
+                   gwas=(2048, 32_768), gibbs=(2048, 32_768, 300, 100),
+                   cv_chains=(1024, 16_384, 4, 100, 30), pairs=(512, 4096, 256))
 
 
-def phase_multi(rep: Report, sizes=MULTI_SIZES):
+def phase_multi(rep: Report, sizes=MULTI_SIZES, only=None):
+    """Each mesh path against the same computation on one card (or, for
+    CG, the dense f64 solve). Only the partitioning differs, so a lost or
+    double-counted shard moves results by O(1); the tolerances allow the
+    GEMMs of other shard shapes to round and sum in another order (TF32
+    operands: 2^-11 per product)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     import genomicbreedingmodels_tpu as gbm
     from genomicbreedingmodels_tpu.cv.batched import cvbulk_batched
-    from genomicbreedingmodels_tpu.models.bayesian import gibbs_regression
+    from genomicbreedingmodels_tpu.models.bayesian import gibbs_cv_folds, gibbs_regression
     from genomicbreedingmodels_tpu.ops.grm import gram_dosage
     from genomicbreedingmodels_tpu.parallel.mesh import make_mesh
     from genomicbreedingmodels_tpu.parallel.sharded import (
+        multitrait_gblup_step,
         sharded_gblup_cg,
         sharded_gibbs_regression,
         sharded_grm,
+        sharded_ridge_step,
     )
 
     devs = jax.devices()
     mesh = make_mesh(shape=(1, len(devs)))
+    mesh22 = make_mesh(shape=(2, len(devs) // 2))
+    one = make_mesh(shape=(1, 1))  # the single-card program
     used = {d.id for d in mesh.devices.flat}
     rep.line("M.mesh", f"{mesh.shape}", 0.0, float(len(devs) - len(used)), 0.0, "n/a",
              f"devices in mesh={sorted(used)}")
 
-    # Sharded GRM, 8192 x 262144 int8, vs the single-card gram_dosage.
-    n, p = sizes["grm"]
-    D = _sync(jax.random.randint(jax.random.PRNGKey(0), (n, p), 0, 3, dtype=jnp.int8))
-    Ds = jax.device_put(D, NamedSharding(mesh, P(None, "mp")))
-    shard_devs = {s.device.id for s in Ds.addressable_shards}
-    K_sh, t_sh = _timed(lambda A: sharded_grm(A, mesh), Ds, reps=3)
-    K_1, t_1 = _timed(lambda A: gram_dosage(A, ploidy=2), D, reps=3)
-    rep.line("M.sharded-grm", f"{n}x{p} int8 over {len(shard_devs)} devices", t_sh,
-             float(np.max(np.abs(np.asarray(K_sh) - np.asarray(K_1)))), 0.0,
-             EXACT_PREC, f"single_card_s={t_1:.4f} err=max|Δ|")
-    del Ds, K_sh, K_1
+    def _m_grm(_rep):
+        # Sharded GRM, 8192 x 262144 int8, vs the single-card gram_dosage.
+        n, p = sizes["grm"]
+        D = _sync(jax.random.randint(jax.random.PRNGKey(0), (n, p), 0, 3, dtype=jnp.int8))
+        Ds = jax.device_put(D, NamedSharding(mesh, P(None, "mp")))
+        shard_devs = {s.device.id for s in Ds.addressable_shards}
+        K_sh, t_sh = _timed(lambda A: sharded_grm(A, mesh), Ds, reps=3)
+        K_1, t_1 = _timed(lambda A: gram_dosage(A, ploidy=2), D, reps=3)
+        rep.line("M.sharded-grm", f"{n}x{p} int8 over {len(shard_devs)} devices", t_sh,
+                 float(np.max(np.abs(np.asarray(K_sh) - np.asarray(K_1)))), 0.0,
+                 EXACT_PREC, f"single_card_s={t_1:.4f} err=max|Δ|")
+        del D, Ds, K_sh, K_1
 
-    # Matrix-free CG GBLUP vs the dense f64 solve of the same system.
-    n, p = sizes["cg"]
-    X, y = synth_panel(n, p, 5)
-    Xh = np.asarray(X)
-    lam = 0.5
-    t0 = time.perf_counter()
-    alpha, gebv = sharded_gblup_cg(Xh, y, lam, mesh, n_iter=400, tol=1e-7)
-    gebv = np.asarray(gebv)
-    dt = time.perf_counter() - t0
-    Z = Xh.astype(np.float64) - Xh.mean(axis=0)
-    Kd = Z @ Z.T / p
-    yc = y.astype(np.float64) - y.mean()
-    g_ref = Kd @ np.linalg.solve(Kd + lam * np.eye(n), yc) + y.mean()
-    rep.line("M.sharded-cg", f"{n}x{p} over {len(devs)} devices", dt, rel_err(gebv, g_ref), 1e-3,
-             DEFAULT_PREC, "err=max|gebv-f64 dense|/max|f64|")
-    del X
+    def _m_cg_ridge_multitrait(_rep):
+        # Matrix-free CG GBLUP vs the dense f64 solve of the same system.
+        n, p = sizes["cg"]
+        X, y = synth_panel(n, p, 5)
+        Xh = np.asarray(X)
+        lam = 0.5
+        t0 = time.perf_counter()
+        alpha, gebv = sharded_gblup_cg(Xh, y, lam, mesh, n_iter=400, tol=1e-7)
+        gebv = np.asarray(gebv)
+        dt = time.perf_counter() - t0
+        Z = Xh.astype(np.float64) - Xh.mean(axis=0)
+        Kd = Z @ Z.T / p
+        yc = y.astype(np.float64) - y.mean()
+        g_ref = Kd @ np.linalg.solve(Kd + lam * np.eye(n), yc) + y.mean()
+        rep.line("M.sharded-cg", f"{n}x{p} over {len(devs)} devices", dt, rel_err(gebv, g_ref), 1e-3,
+                 DEFAULT_PREC, "err=max|gebv-f64 dense|/max|f64|")
 
-    # Fold-sharded CV vs the same folds on one card.
-    genomes, phenomes = gwas_inputs(*sizes["cv"], seed=9)
-    kw = dict(models=("ridge", "gblup", "lasso"), n_replications=1, n_folds=4,
-              store_effects=False)
-    t0 = time.perf_counter()
-    cv_m, _ = cvbulk_batched(genomes, phenomes, mesh=mesh, **kw)
-    dt = time.perf_counter() - t0
-    cv_1, _ = cvbulk_batched(genomes, phenomes, **kw)
-    # Same folds, same λ grid: the fold-sharded batch must reproduce the
-    # predictions where it chose the same λ (bf16-bulk FISTA iterates are not
-    # bit-stable across program partitionings, hence the tolerance). A fold
-    # whose λ differs had a near-tie in its training-only criterion; there
-    # only the validation accuracy is compared.
-    assert len(cv_m) == len(cv_1)
-    diff, flips = 0.0, []
-    for a, b in zip(cv_m, cv_1):
-        assert (a.fit.model, a.replication, a.fold) == (b.fit.model, b.replication, b.fold)
-        la, lb = a.fit.extras["lambda"], b.fit.extras["lambda"]
-        if la == lb:
-            diff = max(diff, rel_err(a.y_pred, b.y_pred))
-        else:
-            flips.append(f"{a.fit.model}/{a.fold}: {la:.4g} vs {lb:.4g}")
-            d_cor = abs(float(a.metrics["cor"]) - float(b.metrics["cor"]))
-            diff = max(diff, 2e-3 if d_cor <= 2e-2 else float("inf"))
-    rep.line("M.sharded-cv", "{}x{} 1x4 folds x 3 models".format(*sizes["cv"]), dt, diff,
-             2e-3, DEFAULT_PREC,
-             "err=max rel |Δ validation prediction| mesh vs single device; "
-             f"λ differs in {len(flips)}/{len(cv_m)} folds {flips} (there |Δ cor| <= 0.02)")
+        # Marker-sharded RR-BLUP step, same panel, vs the same program on one card.
+        Xs = jax.device_put(X, NamedSharding(mesh, P(None, "mp")))
+        X1 = jax.device_put(X, devs[0])
+        lam_r = 1.0  # n·λ = n, against diag(Z Zᵀ) ≈ p/6
+        (b0_m, beta_m), t_m = _timed(lambda A: sharded_ridge_step(A, y, lam_r, mesh), Xs)
+        (b0_1, beta_1), t_1 = _timed(lambda A: sharded_ridge_step(A, y, lam_r, one), X1)
+        err = max(rel_err(beta_m, beta_1), abs(float(b0_m) - float(b0_1)) / max(abs(float(b0_1)), 1e-30))
+        rep.line("M.sharded-ridge", f"{n}x{p} over {len(devs)} devices", t_m, err, 1e-3,
+                 DEFAULT_PREC, f"single_card_s={t_1:.4f} err=max(rel |Δβ|, rel |Δb0|) vs one card")
 
-    # Marker-sharded BayesC vs the single-card chain (phase-2 agreement bounds).
-    gn, gp, sweeps, burn = sizes["gibbs"]
-    Xs, ys = signal_panel(gn, gp)
-    t0 = time.perf_counter()
-    mu_s, b_s = sharded_gibbs_regression(Xs, ys, mesh, axis="mp", model="BayesC",
-                                         n_iter=sweeps, n_burnin=burn, block_size=256, seed=1)
-    dt = time.perf_counter() - t0
-    mu_1, b_1, _ = gibbs_regression(Xs, ys, model="BayesC", n_iter=sweeps, n_burnin=burn,
-                                    seed=1)
-    rep.line("M.sharded-bayesc", f"{gn}x{gp} {sweeps} sweeps over {len(devs)} devices", dt,
-             cor_err(Xs @ b_s, Xs @ b_1), 0.01, DEFAULT_PREC, "err=1-cor(GEBV) vs single-card chain")
+        # Multi-trait GBLUP on the (dp, mp) = (2, 2) mesh: traits over dp, markers over mp.
+        rng = np.random.default_rng(21)
+        Y = (y[None, :] + rng.normal(size=(4, n)) * y.std()).astype(np.float32)
+        Xs22 = jax.device_put(X, NamedSharding(mesh22, P(None, "mp")))
+        g_m, t_m = _timed(lambda A: multitrait_gblup_step(A, Y, lam, mesh22), Xs22)
+        g_1, t_1 = _timed(lambda A: multitrait_gblup_step(A, Y, lam, one), X1)
+        Yc = Y.astype(np.float64) - Y.mean(axis=1, keepdims=True)
+        g_64 = (Kd @ np.linalg.solve(Kd + lam * np.eye(n), Yc.T)).T + Y.mean(axis=1, keepdims=True)
+        rep.line("M.multitrait-gblup", f"4 traits x {n}x{p} over mesh {dict(mesh22.shape)}", t_m,
+                 rel_err(g_m, g_1), 1e-3, DEFAULT_PREC,
+                 f"single_card_s={t_1:.4f} err=max rel |ΔGEBV| vs one card "
+                 f"(vs f64: mesh {rel_err(g_m, g_64):.3e}, one card {rel_err(g_1, g_64):.3e})")
+        del X, Xs, X1, Xs22, Z, Kd
 
-    # Meshed epistasis pair scan vs the single-card scan.
-    from genomicbreedingmodels_tpu.features.endofunctions import mult
-    from genomicbreedingmodels_tpu.features.transform import transform2
+    def _m_gwasreml(_rep):
+        # Marker-sharded per-marker REML scan (gbm.gwasreml with a mesh runs
+        # parallel/sharded.py:sharded_gwasreml) vs the single-card scan.
+        n, p = sizes["gwas"]
+        genomes, phenomes = gwas_inputs(n, p)
+        gbm.gwasreml(genomes=genomes, phenomes=phenomes, mesh=mesh)
+        t0 = time.perf_counter()
+        z_m = gbm.gwasreml(genomes=genomes, phenomes=phenomes, mesh=mesh).b_hat
+        dt = time.perf_counter() - t0
+        z_1 = gbm.gwasreml(genomes=genomes, phenomes=phenomes).b_hat
+        # 1-cor over all markers: rounding moves it ~1e-10, a lost shard ~0.25.
+        rep.line("M.sharded-gwasreml", f"{n}x{p} over {len(devs)} devices", dt, cor_err(z_m, z_1),
+                 1e-6, DEFAULT_PREC, f"err=1-cor(z) vs one card, max|Δz|/max|z|="
+                 f"{rel_err(z_m, z_1):.3e}")
 
-    pn, pl_, k = sizes["pairs"]
-    g2, ph2 = gwas_inputs(pn, pl_, seed=13)
-    t0 = time.perf_counter()
-    out_m = transform2(mult, g2, ph2, n_new_features_per_transformation=k, mesh=mesh)
-    dt = time.perf_counter() - t0
-    out_1 = transform2(mult, g2, ph2, n_new_features_per_transformation=k)
-    same = set(out_m.loci_alleles.tolist()) == set(out_1.loci_alleles.tolist())
-    rep.line("M.meshed-pairs", f"{pn}x{pl_} top-{k} pairs", dt, 0.0 if same else 1.0, 0.0,
-             DEFAULT_PREC, "err=1 if the selected pair sets differ")
-    del gbm
+    def _m_cv(_rep):
+        # Fold-sharded CV vs the same folds on one card: the same λ in every fold
+        # and the same predictions (bf16-bulk FISTA iterates are not bit-stable
+        # across program partitionings, hence a tolerance rather than equality).
+        genomes, phenomes = gwas_inputs(*sizes["cv"], seed=9)
+        kw = dict(models=("ridge", "gblup", "lasso"), n_replications=1, n_folds=4,
+                  store_effects=False)
+        t0 = time.perf_counter()
+        cv_m, _ = cvbulk_batched(genomes, phenomes, mesh=mesh, **kw)
+        dt = time.perf_counter() - t0
+        cv_1, _ = cvbulk_batched(genomes, phenomes, **kw)
+        assert len(cv_m) == len(cv_1)
+        per_model, flips = {}, []
+        for a, b in zip(cv_m, cv_1):
+            assert (a.fit.model, a.replication, a.fold) == (b.fit.model, b.replication, b.fold)
+            la, lb = a.fit.extras["lambda"], b.fit.extras["lambda"]
+            if la != lb:
+                flips.append(f"{a.fit.model}/{a.fold}: {la:.4g} vs {lb:.4g}")
+            d = rel_err(a.y_pred, b.y_pred)
+            per_model[a.fit.model] = max(per_model.get(a.fit.model, 0.0), d)
+        rep.line("M.sharded-cv", "{}x{} 1x4 folds x 3 models".format(*sizes["cv"]), dt,
+                 float("inf") if flips else max(per_model.values()), 2e-3,
+                 f"fold solve:{HIGHEST_PREC}",
+                 "err=max rel |Δ validation prediction| mesh vs single device "
+                 f"{ {m: float(f'{v:.3e}') for m, v in per_model.items()} } "
+                 f"(inf if a fold's λ differs: {flips})")
+
+    def _m_bayes_cv(_rep):
+        # Fold-sharded Bayesian CV chains (block kernel on the GPU) vs one card.
+        cn, cp, folds, sweeps, burn = sizes["cv_chains"]
+        Xc, yc_ = signal_panel(cn, cp, seed=8)
+        masks = fold_masks(cn, folds)
+        kw = dict(model="BayesC", n_iter=sweeps, n_burnin=burn, seed=2)
+        t0 = time.perf_counter()
+        mus_m, b_m = gibbs_cv_folds(Xc, yc_, masks, mesh=mesh, **kw)
+        dt = time.perf_counter() - t0
+        mus_1, b_1 = gibbs_cv_folds(Xc, yc_, masks, **kw)
+        err = max(cor_err(Xc @ bm, Xc @ b1) for bm, b1 in zip(b_m, b_1))
+        rep.line("M.sharded-bayes-cv", f"{folds} folds x {cn}x{cp} {sweeps} sweeps over "
+                 f"{len(devs)} devices", dt, err, 0.01, DEFAULT_PREC,
+                 "err=max over folds of 1-cor(GEBV) vs one card")
+
+    def _m_bayesc(_rep):
+        # Marker-sharded BayesC vs the single-card chain (phase-2 agreement bounds).
+        gn, gp, sweeps, burn = sizes["gibbs"]
+        Xs, ys = signal_panel(gn, gp)
+        t0 = time.perf_counter()
+        mu_s, b_s = sharded_gibbs_regression(Xs, ys, mesh, axis="mp", model="BayesC",
+                                             n_iter=sweeps, n_burnin=burn, block_size=256, seed=1)
+        dt = time.perf_counter() - t0
+        mu_1, b_1, _ = gibbs_regression(Xs, ys, model="BayesC", n_iter=sweeps, n_burnin=burn,
+                                        seed=1)
+        rep.line("M.sharded-bayesc", f"{gn}x{gp} {sweeps} sweeps over {len(devs)} devices", dt,
+                 cor_err(Xs @ b_s, Xs @ b_1), 0.01, DEFAULT_PREC, "err=1-cor(GEBV) vs single-card chain")
+
+    def _m_pairs(_rep):
+        # Meshed epistasis pair scan vs the single-card scan.
+        from genomicbreedingmodels_tpu.features.endofunctions import mult
+        from genomicbreedingmodels_tpu.features.transform import transform2
+
+        pn, pl_, k = sizes["pairs"]
+        g2, ph2 = gwas_inputs(pn, pl_, seed=13)
+        t0 = time.perf_counter()
+        out_m = transform2(mult, g2, ph2, n_new_features_per_transformation=k, mesh=mesh)
+        dt = time.perf_counter() - t0
+        out_1 = transform2(mult, g2, ph2, n_new_features_per_transformation=k)
+        same = set(out_m.loci_alleles.tolist()) == set(out_1.loci_alleles.tolist())
+        rep.line("M.meshed-pairs", f"{pn}x{pl_} top-{k} pairs", dt, 0.0 if same else 1.0, 0.0,
+                 DEFAULT_PREC, "err=1 if the selected pair sets differ")
+
+    checks = {"grm": _m_grm, "cg-ridge-multitrait": _m_cg_ridge_multitrait,
+              "gwasreml": _m_gwasreml, "cv": _m_cv, "bayes-cv": _m_bayes_cv,
+              "bayesc": _m_bayesc, "pairs": _m_pairs}
+    for name in only or checks:
+        rep.run(f"M.{name}", checks[name])
 
 
 # ---------------------------------------------------------------------------
@@ -699,6 +849,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi", action="store_true",
                     help="run only the mesh phase, on 4 cards")
+    ap.add_argument("--only", default=None,
+                    help="with --multi: comma-separated mesh checks to run "
+                         "(grm, cg-ridge-multitrait, gwasreml, cv, bayes-cv, bayesc, pairs)")
     args = ap.parse_args(argv)
 
     import jax
@@ -728,10 +881,12 @@ def main(argv=None) -> int:
     rep.info("0.device", f"nvidia-smi: {smi}")
     t_start = time.perf_counter()
     if args.multi:
-        rep.run("M", phase_multi)
+        rep.run("M", phase_multi, MULTI_SIZES,
+                args.only.split(",") if args.only else None)
     else:
         for name, fn in (("1", phase_flagship), ("2", phase_sampler), ("2c", phase_chains),
-                         ("3g", phase_gwas), ("3c", phase_cv), ("4", phase_parity)):
+                         ("2f", phase_cv_chains), ("3g", phase_gwas), ("3c", phase_cv),
+                         ("4", phase_parity)):
             rep.run(name, fn)
     rep.info("done", f"wall_s={time.perf_counter() - t_start:.1f}")
     if rep.failures:

@@ -133,3 +133,23 @@ def test_lasso_fold_f64_solves_the_lasso():
     r = (y - y.mean()) - (pred - y.mean())
     g = Z.T @ r / n
     assert np.max(np.abs(g)) <= lam * (1 + 1e-3)
+
+
+def test_ridge_gcv_f64_is_the_engine_criterion():
+    """The f64 GCV curve is the criterion _fold_solve minimizes: the same
+    values (to f32) along the grid and the same λ picked."""
+    from genomicbreedingmodels_tpu.cv.batched import _fold_solve
+
+    rng = np.random.default_rng(5)
+    n, p = 40, 30
+    X = rng.random((n, p))
+    Z = X - X.mean(axis=0)
+    K = Z @ Z.T
+    y = Z[:, :3] @ np.array([1.0, -2.0, 0.5]) + 0.5 * rng.normal(size=n)
+    w = (rng.random(n) < 0.75).astype(np.float64)
+    grid = np.logspace(-4, 1, 12)
+    _, _, crit = _fold_solve(K.astype(np.float32), y.astype(np.float32),
+                             w.astype(np.float32), grid.astype(np.float32))
+    ref = cs.ridge_gcv_f64(K, y, w, grid)
+    np.testing.assert_allclose(np.asarray(crit), ref, rtol=2e-3)
+    assert int(np.argmin(crit)) == int(np.argmin(ref))

@@ -234,3 +234,68 @@ def test_gibbs_cv_folds_mesh_matches_single_device():
     mus1, b1 = gibbs_cv_folds(X, y, masks, mesh=mesh, **kw)
     np.testing.assert_allclose(mus1, mus0, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(b1, b0, rtol=2e-3, atol=2e-4)
+
+
+def test_gibbs_cv_folds_block_kernel_matches_grouped(monkeypatch):
+    """Where "auto" picks the block kernel (a GPU), the fold-batched chains
+    run it vmapped, one kernel program per fold, and make the XLA grouped
+    scan's draws. Here the kernel runs in the Pallas interpreter."""
+    import functools
+    import importlib
+
+    from genomicbreedingmodels_tpu.ops.pallas_gibbs import grouped_block_update
+    from genomicbreedingmodels_tpu.utils.config import GBMConfig, reset_config, set_config
+
+    bayes = importlib.import_module("genomicbreedingmodels_tpu.models.bayesian")
+    rng = np.random.default_rng(6)
+    n, p, F = 40, 60, 3
+    X = (rng.integers(0, 3, size=(n, p)) / 2.0).astype(np.float32)
+    y = (X[:, :4] @ rng.normal(size=4) + 0.3 * rng.normal(size=n)).astype(np.float32)
+    masks = np.ones((F, n), np.float32)
+    for f in range(F):
+        masks[f, f::F] = 0.0
+    kw = dict(model="BayesC", n_iter=16, n_burnin=4, seed=3)
+    try:
+        set_config(GBMConfig(mcmc_indicator_update="grouped"))
+        mus_g, b_g = bayes.gibbs_cv_folds(X, y, masks, **kw)
+        monkeypatch.setattr(bayes, "platform", lambda: "gpu")
+        monkeypatch.setattr(bayes, "grouped_block_update",
+                            functools.partial(grouped_block_update, interpret=True))
+        set_config(GBMConfig(mcmc_indicator_update="auto"))
+        mus_k, b_k = bayes.gibbs_cv_folds(X, y, masks, **kw)
+    finally:
+        reset_config()
+    np.testing.assert_allclose(mus_k, mus_g, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(b_k, b_g, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["ridge", "gblup"])
+def test_fold_solves_run_at_full_f32_precision(name):
+    """Every product of the fold solves asks for HIGHEST precision: at the
+    default a tensor-core GPU rounds f32 operands to TF32, below the size of
+    the small-λ training residual that GCV compares."""
+    import jax
+    import jax.numpy as jnp
+
+    from genomicbreedingmodels_tpu.cv.batched import _fold_solve, _fold_solve_gblup
+
+    fn = _fold_solve if name == "ridge" else _fold_solve_gblup
+    n = 12
+    jaxpr = jax.make_jaxpr(fn)(jnp.eye(n), jnp.ones(n), jnp.ones(n), jnp.ones(3))
+    dots = _dot_precisions(jaxpr.jaxpr)
+    assert len(dots) >= 3
+    assert all(p == jax.lax.Precision.HIGHEST for p in dots), dots
+
+
+def _dot_precisions(jaxpr):
+    """The precision of every dot_general in a jaxpr, sub-jaxprs included."""
+    import jax
+
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            prec = eqn.params["precision"]
+            out.append(prec[0] if isinstance(prec, tuple) else prec)
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out.extend(_dot_precisions(sub))
+    return out
